@@ -1,11 +1,11 @@
-"""aligner-tpu — a TPU-native pairwise sequence-alignment framework.
+"""aligner-tpu — a GPU pairwise sequence-alignment framework in JAX.
 
 A from-scratch reimplementation of the capabilities of ikramanop/aligner
 (global/local DP alignment, PWM alignment, heuristic matrix-free alignment,
 Karlin-Altschul statistics, latent-repeat search and a distributed
-alignment service), designed for TPUs: batched Pallas DP kernels with
-problems in VPU lanes, JAX/XLA host orchestration, and device-mesh scaling
-via shard_map collectives.
+alignment service), built for accelerators: a batched Pallas GPU DP
+kernel with one problem per thread, JAX/XLA host orchestration, and
+device-mesh scaling via shard_map collectives.
 """
 
 from .alphabet import DNA, Index, Protein, index_coord, rotate_indices

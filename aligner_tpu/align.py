@@ -6,9 +6,9 @@ reference's ``AlignerTrait`` surface (``SimpleGlobalAligner``,
 ``SimpleLocalAligner``, ``PWMAligner`` — aligner-core/src/lib.rs:27-40,
 simple/mod.rs, pwm/mod.rs).
 
-Backends: ``oracle`` (scalar NumPy f64), ``xla`` (batched lax.scan), and
-``pallas`` (TPU kernel).  ``backend=None`` picks pallas on TPU, xla
-elsewhere.  All backends implement the exact reference semantics; f32 is
+Backends: ``oracle`` (scalar host engine), ``xla`` (batched lax.scan), and
+``pallas`` (GPU batch kernel).  ``backend=None`` picks by platform
+(``backend.PLATFORMS``).  All backends implement the exact reference semantics; f32 is
 bit-exact for integer-valued matrices (every score is a small sum of
 matrix entries), while heuristic-transformed matrices may differ from the
 f64 oracle in ties — use ``dtype=jnp.float64`` on CPU for strict parity.
@@ -17,6 +17,7 @@ f64 oracle in ties — use ``dtype=jnp.float64`` on CPU for strict parity.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Sequence
 
@@ -32,7 +33,7 @@ from .traceback import traceback_global, traceback_local, traceback_pwm
 
 # ---------------------------------------------------------------------------
 # Automatic data-parallel sharding.  When more than one device is visible
-# (a TPU pod slice, or the CPU test mesh), every batched fill shards its
+# (several GPUs, or the CPU test mesh), every batched fill shards its
 # problem axis over a 1-D device mesh — this is how the reference's
 # thread fan-outs (statistics/mod.rs:253-291, engine/calc.rs:45-75) and
 # Kafka worker pool (node/main.rs) scale past one chip.  Per-problem
@@ -108,6 +109,70 @@ def _assemble_sharded_fill(outs, B, R_orig, backend, with_planes,
     return FillResult(plane=None, dirs=dirs, fmax=fmax, fy=fy, fx=fx, end=end)
 
 
+@functools.lru_cache(maxsize=64)
+def _sharded_step(mesh, mode, with_planes, backend, dtype, track_argmax,
+                  del_, ext, batched_mat):
+    """The jitted shard_map program of one sharded fill configuration,
+    built once: a fresh shard_map per call would retrace and recompile
+    the whole per-shard fill (kernel included) on every batch.  ``mode``
+    is "local"/"global" (operands q, qlen, t, tlen, matrix) or "pwm"
+    (operands q, qlen, pwm)."""
+    import jax
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from .ops import scan_engine
+
+    def pair_fn(qs, qls, ts, tls, mat):
+        if backend == "pallas":
+            from .ops.pallas_dp import fill_full_traced, fill_scores_traced
+
+            if with_planes:
+                return fill_full_traced(
+                    qs, qls, ts, tls, mat, del_, ext, mode=mode, dtype=dtype,
+                )
+            return fill_scores_traced(
+                qs, qls, ts, tls, mat, del_, ext, mode=mode, dtype=dtype,
+                track_argmax=track_argmax,
+            )
+        r = scan_engine.fill_batch(
+            qs, qls, ts, tls, mat, del_, ext,
+            mode=mode, with_planes=with_planes, dtype=dtype,
+        )
+        return (r.fmax, r.fy, r.fx, r.end) + ((r.dirs,) if with_planes else ())
+
+    def pwm_fn(qs, qls, mat):
+        if backend == "pallas":
+            from .ops.pallas_dp import (
+                fill_pwm_full_traced,
+                fill_pwm_scores_traced,
+            )
+
+            if with_planes:
+                return fill_pwm_full_traced(qs, qls, mat, del_, ext,
+                                            dtype=dtype)
+            return fill_pwm_scores_traced(
+                qs, qls, mat, del_, ext, dtype=dtype,
+                track_argmax=track_argmax,
+            )
+        r = scan_engine.fill_pwm_batch(
+            qs, qls, mat, del_, ext, with_planes=with_planes, dtype=dtype
+        )
+        return (r.fmax, r.fy, r.fx, r.end) + ((r.dirs,) if with_planes else ())
+
+    mat_spec = P("data") if batched_mat else P()
+    if mode == "pwm":
+        fn, in_specs = pwm_fn, (P("data"), P("data"), mat_spec)
+    else:
+        fn = pair_fn
+        in_specs = (P("data"), P("data"), P("data"), P("data"), mat_spec)
+    return jax.jit(shard_map(
+        fn, mesh=mesh, in_specs=in_specs,
+        out_specs=tuple([P("data")] * (5 if with_planes else 4)),
+        check_vma=False,
+    ))
+
+
 def _fill_sharded(q, ql, t, tl, matrix, del_, ext, mode, with_planes,
                   backend, dtype, track_argmax, ndev, device_dirs=False):
     """Data-sharded batched fill (scores-only or direction-plane mode).
@@ -123,12 +188,7 @@ def _fill_sharded(q, ql, t, tl, matrix, del_, ext, mode, with_planes,
     (lax bordered plane).
     """
     import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
 
-    from .ops.scan_engine import fill_batch
-
-    mesh = _data_mesh()
     B = q.shape[0]
     Bp = -(-B // ndev) * ndev
     matrix = np.asarray(matrix)
@@ -136,53 +196,15 @@ def _fill_sharded(q, ql, t, tl, matrix, del_, ext, mode, with_planes,
     q, ql, t, tl = _pad_batch_rows([q, ql, t, tl], B, Bp)
     if batched_mat:
         (matrix,) = _pad_batch_rows([matrix], B, Bp)
-    R_orig = t.shape[1]
-
-    from .ops.pallas_dp import lut_matrix_arg
-
-    mat_arg, packed, lut_bits, lut_bias = lut_matrix_arg(
-        matrix, dtype, enable=(backend == "pallas" and not batched_mat)
-    )
-    mat_spec = P("data") if batched_mat else P()
-    n_out = 5 if with_planes else 4
-
-    def shard_fn(qs, qls, ts, tls, mat):
-        if backend == "pallas":
-            from .ops.pallas_dp import fill_full_traced, fill_scores_traced
-
-            if with_planes:
-                return fill_full_traced(
-                    qs, qls, ts, tls, mat, del_, ext,
-                    mode=mode, dtype=dtype, packed_lut=packed,
-                    lut_bits=lut_bits, lut_bias=lut_bias,
-                )
-            return fill_scores_traced(
-                qs, qls, ts, tls, mat, del_, ext,
-                mode=mode, dtype=dtype, packed_lut=packed,
-                lut_bits=lut_bits, lut_bias=lut_bias,
-                track_argmax=track_argmax,
-            )
-        r = fill_batch(
-            qs, qls, ts, tls, mat, del_, ext,
-            mode=mode, with_planes=with_planes, dtype=dtype,
-        )
-        if with_planes:
-            return r.fmax, r.fy, r.fx, r.end, r.dirs
-        return r.fmax, r.fy, r.fx, r.end
-
-    step = shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P("data"), P("data"), P("data"), P("data"), mat_spec),
-        out_specs=tuple([P("data")] * n_out),
-        check_vma=False,
-    )
+    step = _sharded_step(_data_mesh(), mode, with_planes, backend, dtype,
+                         track_argmax, float(del_), float(ext), batched_mat)
     outs = step(
         jnp.asarray(q, jnp.int32), jnp.asarray(ql, jnp.int32),
-        jnp.asarray(t, jnp.int32), jnp.asarray(tl, jnp.int32), mat_arg,
+        jnp.asarray(t, jnp.int32), jnp.asarray(tl, jnp.int32),
+        _matrix_arg(matrix, dtype, del_, ext, backend),
     )
     return _assemble_sharded_fill(
-        outs, B, R_orig, backend, with_planes, device_dirs,
+        outs, B, t.shape[1], backend, with_planes, device_dirs,
         (ql[:B], tl[:B], mode),
     )
 
@@ -193,12 +215,7 @@ def _fill_pwm_sharded(q, ql, pwm, del_, ext, with_planes, backend, dtype,
     (engine/calc.rs:45-75) sharded over the device mesh.
     ``device_dirs`` as in :func:`_fill_sharded`."""
     import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
 
-    from .ops.scan_engine import fill_pwm_batch
-
-    mesh = _data_mesh()
     B = q.shape[0]
     Bp = -(-B // ndev) * ndev
     pwm = np.asarray(pwm)
@@ -206,48 +223,28 @@ def _fill_pwm_sharded(q, ql, pwm, del_, ext, with_planes, backend, dtype,
     q, ql = _pad_batch_rows([q, ql], B, Bp)
     if batched_mat:
         (pwm,) = _pad_batch_rows([pwm], B, Bp)
-    R_orig = q.shape[1]
-    W = pwm.shape[-1]
-    mat_spec = P("data") if batched_mat else P()
-    n_out = 5 if with_planes else 4
-
-    def shard_fn(qs, qls, mat):
-        if backend == "pallas":
-            from .ops.pallas_dp import (
-                fill_pwm_full_traced,
-                fill_pwm_scores_traced,
-            )
-
-            if with_planes:
-                return fill_pwm_full_traced(
-                    qs, qls, mat, del_, ext, dtype=dtype
-                )
-            return fill_pwm_scores_traced(
-                qs, qls, mat, del_, ext, dtype=dtype,
-                track_argmax=track_argmax,
-            )
-        r = fill_pwm_batch(
-            qs, qls, mat, del_, ext, with_planes=with_planes, dtype=dtype
-        )
-        if with_planes:
-            return r.fmax, r.fy, r.fx, r.end, r.dirs
-        return r.fmax, r.fy, r.fx, r.end
-
-    step = shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P("data"), P("data"), mat_spec),
-        out_specs=tuple([P("data")] * n_out),
-        check_vma=False,
-    )
+    step = _sharded_step(_data_mesh(), "pwm", with_planes, backend, dtype,
+                         track_argmax, float(del_), float(ext), batched_mat)
     outs = step(
         jnp.asarray(q, jnp.int32), jnp.asarray(ql, jnp.int32),
-        jnp.asarray(pwm, dtype),
+        _matrix_arg(pwm, dtype, del_, ext, backend),
     )
     return _assemble_sharded_fill(
-        outs, B, R_orig, backend, with_planes, device_dirs,
-        (np.full(B, W, np.int32), ql[:B], "local"),
+        outs, B, q.shape[1], backend, with_planes, device_dirs,
+        (np.full(B, pwm.shape[-1], np.int32), ql[:B], "local"),
     )
+
+
+def _matrix_arg(matrix, dtype, del_, ext, backend):
+    """Device matrix operand: the GPU kernel computes in int32 when the
+    matrix and penalties are integral; the XLA engine in ``dtype``."""
+    import jax.numpy as jnp
+
+    if backend == "pallas":
+        from .ops.pallas_dp import matrix_operand
+
+        return matrix_operand(matrix, dtype, del_, ext)
+    return jnp.asarray(matrix, dtype)
 
 
 def _encode(seq, alphabet: type[Alphabet]) -> np.ndarray:
@@ -279,6 +276,8 @@ def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_planes, backend, dtype,
     from .observability import measure
 
     cells = int((np.asarray(ql, np.int64) * np.asarray(tl, np.int64)).sum())
+    if scores_plane:
+        backend = "xla"  # only the XLA engine materializes the score plane
     ndev = _auto_shard_devices()
     if ndev > 1 and len(ql) > 1 and not scores_plane:
         with measure(f"{backend}x{ndev}/{mode}", cells, len(ql)):
@@ -294,15 +293,11 @@ def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_planes, backend, dtype,
             from .ops.scan_engine import FillResult
 
             if backend == "pallas":
-                from .ops.pallas_dp import fill_full_traced, lut_matrix_arg
+                from .ops.pallas_dp import fill_full_traced
 
-                mat_arg, packed, lut_bits, lut_bias = lut_matrix_arg(
-                    matrix, dtype
-                )
                 fmax, fy, fx, end, words = fill_full_traced(
-                    q, ql, t, tl, mat_arg, del_, ext, mode=mode,
-                    dtype=dtype, packed_lut=packed, lut_bits=lut_bits,
-                    lut_bias=lut_bias,
+                    q, ql, t, tl, _matrix_arg(matrix, dtype, del_, ext, backend),
+                    del_, ext, mode=mode, dtype=dtype,
                 )
                 fmax.block_until_ready()
                 return (
@@ -328,7 +323,7 @@ def _fill(q, ql, t, tl, matrix, del_, ext, mode, with_planes, backend, dtype,
             res = fill_batch_pallas(
                 q, ql, t, tl, matrix, del_, ext, mode=mode,
                 with_planes=with_planes, dtype=dtype,
-                track_argmax=track_argmax, scores_plane=scores_plane,
+                track_argmax=track_argmax,
             )
         else:
             from .ops.scan_engine import fill_batch
@@ -349,6 +344,8 @@ def _fill_pwm(q, ql, pwm, del_, ext, with_planes, backend, dtype,
 
     width = np.asarray(pwm).shape[-1]
     cells = int(np.asarray(ql, np.int64).sum()) * int(width)
+    if scores_plane:
+        backend = "xla"  # only the XLA engine materializes the score plane
     ndev = _auto_shard_devices()
     if ndev > 1 and len(ql) > 1 and not scores_plane:
         with measure(f"{backend}x{ndev}/pwm", cells, len(ql)):
@@ -366,7 +363,8 @@ def _fill_pwm(q, ql, pwm, del_, ext, with_planes, backend, dtype,
                 from .ops.pallas_dp import fill_pwm_full_traced
 
                 fmax, fy, fx, end, words = fill_pwm_full_traced(
-                    q, ql, jnp.asarray(pwm, dtype), del_, ext, dtype=dtype
+                    q, ql, _matrix_arg(pwm, dtype, del_, ext, backend),
+                    del_, ext, dtype=dtype,
                 )
                 fmax.block_until_ready()
                 return (
@@ -389,12 +387,9 @@ def _fill_pwm(q, ql, pwm, del_, ext, with_planes, backend, dtype,
         if backend == "pallas":
             from .ops.pallas_dp import fill_pwm_batch_pallas
 
-            # scores_plane=False by default: the PWM consumers (traceback
-            # walks) read only the direction plane, so the f32 score
-            # planes never leave the device (mirrors the pair path knob)
             res = fill_pwm_batch_pallas(
                 q, ql, pwm, del_, ext, with_planes=with_planes, dtype=dtype,
-                scores_plane=scores_plane, track_argmax=track_argmax,
+                track_argmax=track_argmax,
             )
         else:
             from .ops.scan_engine import fill_pwm_batch
@@ -415,37 +410,45 @@ def _integral_params(matrix_np, del_, ext) -> bool:
     )
 
 
-def _route_sharded_pair(qlen, tlen, matrix_np, del_, ext, *,
-                        backend, auto, huge, keep_planes):
-    """Shared huge-pair dispatch: should this single-pair request run on
-    the cross-chip column-sharded pipeline?  Raises ValidationError for
-    an explicit ``backend="wavefront_sp"`` the pipeline cannot honor
-    (the auto path simply declines).  One definition so align_global and
-    global_end_score cannot drift (they route identically)."""
-    from .ops import wavefront as _wf
+# explicit backend names of the huge-pair pipeline
+# (parallel/wavefront_sp.py): full alignments and end scores
+PAIR_PIPELINE_BACKENDS = ("wavefront", "wavefront_sp", "diag")
 
-    integral = _integral_params(matrix_np, del_, ext)
-    if backend == "wavefront_sp":
-        if keep_planes:
+
+def _use_pair_pipeline(qlen, tlen, matrix_np, del_, ext, *, backend, huge,
+                       keep_planes):
+    """Huge-pair dispatch: should this single global pair run on the
+    row-scan pipeline over the local devices?  Raises ValidationError
+    for an explicit pipeline backend it cannot honor; the auto path
+    declines non-huge pairs.  One definition so align_global and
+    global_end_score route identically."""
+    from .parallel.wavefront_sp import range_ok
+
+    ok = (
+        _integral_params(matrix_np, del_, ext)
+        and range_ok(qlen, tlen, del_, ext)
+        and not keep_planes
+    )
+    if backend in PAIR_PIPELINE_BACKENDS:
+        if not ok:
             raise ValidationError(
-                "wavefront_sp cannot materialize planes (keep_planes)"
-            )
-        if not integral or not _wf.range_ok(qlen, tlen, del_, ext):
-            raise ValidationError(
-                "wavefront_sp requires an integral matrix/penalties "
-                "with scores in the int32-exact range"
+                f"backend {backend!r} requires an integral matrix/penalties "
+                "with scores in the int32-exact range, and no keep_planes"
             )
         return True
-    return (
-        auto
-        and integral
-        and not keep_planes
-        and _wf.range_ok(qlen, tlen, del_, ext)
-        and (
-            qlen > _wf.MAX_WIDTH
-            or (huge and _auto_shard_devices() > 1)
-        )
-    )
+    if huge and backend in (None, "auto"):
+        if not ok:
+            # every remaining engine materializes O(R*C) planes — at this
+            # scale a silent fallthrough is an OOM, not an alignment; an
+            # explicitly requested engine is honored
+            raise ValidationError(
+                f"global pair of {tlen}x{qlen} = {qlen * tlen} cells needs "
+                "a materialized plane under the requested options; huge "
+                "pairs require an integral matrix/penalties in int32 range "
+                "and keep_planes=False"
+            )
+        return True
+    return False
 
 
 @dataclasses.dataclass
@@ -476,83 +479,34 @@ def align_global(
 ) -> AlignmentResult:
     """Global (NW-style) alignment of one pair (simple/mod.rs:42-144).
 
-    Huge single pairs (beyond the host engine's sweet spot) route to the
-    row-scan wavefront kernel on TPU automatically when the matrix and
-    penalties are integral — exact in global mode because the penalty is
-    constant ``ext`` after cell (1,1) (SURVEY.md §2.3.3); force it with
-    ``backend="wavefront"``.
+    Huge single pairs (past the direct-plane budget) route to the exact
+    int32 row-scan pipeline over the local devices
+    (:func:`aligner_tpu.parallel.sharded_global_align`) when the matrix
+    and penalties are integral — exact in global mode because the
+    penalty is constant ``ext`` after cell (1,1) (SURVEY.md §2.3.3);
+    force it with ``backend="wavefront"``.
     """
     q = _encode(query, alphabet)
     t = _encode(target, alphabet)
     if len(q) == 0 or len(t) == 0:
         raise ResultIsEmpty("empty sequence")
     cells = len(q) * len(t)
-    from .backend import SMALL_PROBLEM_CELLS_NATIVE, on_tpu
-    from .ops import wavefront as _wf
+    from .parallel.wavefront_sp import DIRECT_PLANE_CELLS
 
     matrix_np = np.asarray(matrix)
-    huge = cells > _wf.DIRECT_PLANE_CELLS
-    auto = backend in (None, "auto")
-    # --- dispatch (VERDICT r2 #3): single-chip wavefront for pairs
-    # within its width cap; the cross-chip column-sharded pipeline for
-    # wider pairs or when several devices are visible; NEVER fall
-    # through to a materialized O(R*C) plane at huge scale ---
-    use_sharded = _route_sharded_pair(
-        len(q), len(t), matrix_np, del_, ext,
-        backend=backend, auto=auto, huge=huge, keep_planes=keep_planes,
-    )
-    use_wavefront = False
-    if not use_sharded and (backend == "wavefront" or auto):
-        if _wf.supported(len(q), matrix_np, del_, ext, tlen=len(t)):
-            # keep_planes callers need the score plane, which the
-            # wavefront engine does not produce — auto-routing skips
-            # them (an explicit backend="wavefront" still returns
-            # directions-only planes)
-            use_wavefront = backend == "wavefront" or (
-                (on_tpu() or huge)
-                and cells > SMALL_PROBLEM_CELLS_NATIVE
-                and not keep_planes
-            )
-    if use_sharded:
+    if _use_pair_pipeline(
+        len(q), len(t), matrix_np, del_, ext, backend=backend,
+        huge=cells > DIRECT_PLANE_CELLS, keep_planes=keep_planes,
+    ):
         from .parallel.wavefront_sp import sharded_global_align
 
         # _data_mesh: LOCAL devices under a multi-controller runtime —
-        # a single process must not shard_map over non-addressable chips
+        # a single process must not shard_map over non-addressable devices
         _, qa, ta, coords = sharded_global_align(
             _data_mesh(), q, t, matrix_np, del_, ext
         )
         aln = Alignment(qa, ta, coords, 0.0, alphabet)
         return AlignmentResult(aln)
-    if use_wavefront:
-        if cells > _wf.DIRECT_PLANE_CELLS and not keep_planes:
-            # chromosome-scale: checkpoint-and-replay traceback instead
-            # of materializing an O(R*C) direction plane
-            _, qa, ta, coords = _wf.align_single_global_chunked(
-                q, t, matrix_np, del_, ext
-            )
-            aln = Alignment(qa, ta, coords, 0.0, alphabet)
-            return AlignmentResult(aln)
-        _, wf_dirs = _wf.fill_single_global(q, t, matrix_np, del_, ext)
-        qa, ta, coords = traceback_global(wf_dirs, q, t)
-        aln = Alignment(qa, ta, coords, 0.0, alphabet)
-        return AlignmentResult(
-            aln, directions=wf_dirs if keep_planes else None
-        )
-    if backend == "wavefront":
-        raise ValidationError(
-            "wavefront backend requires an integral matrix/penalties, "
-            "qlen within its width cap, and int32-range scores"
-        )
-    if huge and auto:
-        # every remaining engine materializes O(R*C) planes — at this
-        # scale a silent fallthrough is an OOM, not an alignment; an
-        # explicitly requested engine is honored (VERDICT r2 weak #5)
-        raise ValidationError(
-            f"global pair of {len(t)}x{len(q)} = {cells} cells needs a "
-            "materialized plane under the requested options; huge pairs "
-            "require an integral matrix/penalties in int32 range (the "
-            "wavefront engines) and keep_planes=False"
-        )
     backend = pick_backend(backend, cells=cells)
     if backend == "oracle":
         r = host.align_global(q, t, np.asarray(matrix), del_, ext)
@@ -592,38 +546,30 @@ def global_end_score(
     backend: str | None = None,
 ) -> float:
     """Exact global end score ``H[tlen, qlen]`` of ONE pair — no plane,
-    no traceback (a TPU-side extension; the reference always builds the
-    full alignment, simple/mod.rs:42-98, but serving end scores is the
-    cheap half of that DP and huge pairs deserve the scan-free engine).
+    no traceback (an extension; the reference always builds the full
+    alignment, simple/mod.rs:42-98, but serving end scores is the cheap
+    half of that DP).
 
-    Dispatch mirrors :func:`align_global`: small pairs use the native
-    host fill; integral-score pairs on TPU (or beyond the direct-plane
-    budget) use the band-diagonal kernel
-    (:func:`aligner_tpu.ops.wavefront.end_score_single_global_diag`,
-    +48% over the row-scan engine); pairs wider than the single-chip
-    cap — or any huge pair when several devices are visible — use the
-    cross-chip column-sharded pipeline.  Force with ``backend`` in
-    ``{"diag", "wavefront_sp"}``.
+    Dispatch mirrors :func:`align_global`: pairs past the direct-plane
+    budget use the row-scan pipeline over the local devices, everything
+    else the host fill.  Force with ``backend`` in
+    ``{"diag", "wavefront", "wavefront_sp", "host"}``.
     """
     q = _encode(query, alphabet)
     t = _encode(target, alphabet)
     if len(q) == 0 or len(t) == 0:
         raise ResultIsEmpty("empty sequence")
-    from .backend import SMALL_PROBLEM_CELLS_NATIVE, on_tpu
-    from .ops import wavefront as _wf
+    from .parallel.wavefront_sp import DIRECT_PLANE_CELLS
 
     matrix_np = np.asarray(matrix)
-    cells = len(q) * len(t)
-    huge = cells > _wf.DIRECT_PLANE_CELLS
-    auto = backend in (None, "auto")
-    if backend not in (None, "auto", "diag", "wavefront_sp", "host"):
+    if backend not in (None, "auto", "host", *PAIR_PIPELINE_BACKENDS):
         raise ValidationError(
             f"unknown backend {backend!r} for global_end_score "
-            "(choose auto, diag, wavefront_sp, or host)"
+            "(choose auto, diag, wavefront, wavefront_sp, or host)"
         )
-    if _route_sharded_pair(
-        len(q), len(t), matrix_np, del_, ext,
-        backend=backend, auto=auto, huge=huge, keep_planes=False,
+    if _use_pair_pipeline(
+        len(q), len(t), matrix_np, del_, ext, backend=backend,
+        huge=len(q) * len(t) > DIRECT_PLANE_CELLS, keep_planes=False,
     ):
         from .parallel.wavefront_sp import sharded_global_end_score
 
@@ -631,30 +577,6 @@ def global_end_score(
             sharded_global_end_score(
                 _data_mesh(), q, t, matrix_np, del_, ext
             )
-        )
-    if backend == "diag" or (
-        auto
-        and _wf.supported(len(q), matrix_np, del_, ext, tlen=len(t))
-        and (on_tpu() or huge)
-        and cells > SMALL_PROBLEM_CELLS_NATIVE
-    ):
-        # only the EXPLICIT diag route needs re-validation — the auto
-        # branch already required supported() above
-        if backend == "diag" and not _wf.supported(
-            len(q), matrix_np, del_, ext, tlen=len(t)
-        ):
-            raise ValidationError(
-                "diag backend requires an integral matrix/penalties, "
-                "qlen within the width cap, and int32-range scores"
-            )
-        return float(
-            _wf.end_score_single_global_diag(q, t, matrix_np, del_, ext)
-        )
-    if huge and auto:
-        raise ValidationError(
-            f"global pair of {len(t)}x{len(q)} = {cells} cells needs an "
-            "integral matrix/penalties in int32 range (the wavefront "
-            "engines) — every remaining engine materializes O(R*C)"
         )
     r = host.align_global(q, t, matrix_np, del_, ext)
     return float(r.score[len(t), len(q)])
@@ -681,7 +603,6 @@ def local_max_score(
     falls back to the device scores-only fill (same outputs, no plane,
     any size)."""
     from . import native
-    from .ops import wavefront as _wf
 
     q = _encode(query, alphabet)
     t = _encode(target, alphabet)
@@ -724,14 +645,14 @@ def align_local(
     through every cell, SURVEY §2.3.3), so unlike GLOBAL mode there is
     no wavefront/device path for a single pair; ``backend="stream"``
     forces the streaming engine at any size."""
-    from .ops import wavefront as _wf
+    from .parallel.wavefront_sp import DIRECT_PLANE_CELLS
 
     q = _encode(query, alphabet)
     t = _encode(target, alphabet)
     if len(q) == 0 or len(t) == 0:
         raise ResultIsEmpty("empty sequence")
     cells = len(q) * len(t)
-    huge = cells > _wf.DIRECT_PLANE_CELLS
+    huge = cells > DIRECT_PLANE_CELLS
     if backend == "stream" or (backend in (None, "auto") and huge):
         from . import native
 
@@ -849,7 +770,7 @@ def batch_align(
     ``matrix`` may be one (V, V) matrix shared by the batch or (B, V, V)
     per-problem matrices.  Without ``with_alignments`` this is scores-only
     (no direction planes leave the device) and returns :class:`BatchScores`;
-    with it, a list of :class:`AlignmentResult` (the TPU-native equivalent
+    with it, a list of :class:`AlignmentResult` (the batched equivalent
     of the reference's thread fan-outs, statistics/mod.rs:253-291).
 
     ``pad_to`` pads the batch with inactive problems to a fixed size so
@@ -922,7 +843,7 @@ def batch_align(
         # empty sequences cannot seed a traceback (the q[-1] seed char);
         # reject BEFORE the batched fill (the check only needs lengths —
         # failing after would waste the whole launch and, on a fresh
-        # shape, a remote compile) like the single-pair APIs do
+        # shape, a compile) like the single-pair APIs do
         if (((ql[:n_real] == 0) | (tl[:n_real] == 0)) & ~skip_mask).any():
             raise ResultIsEmpty("empty sequence")
     # global mode: the pallas kernel captures the end score H[tlen,qlen]
@@ -1042,7 +963,7 @@ def batch_align_pwm(
     ``track_argmax=False`` (scores-only mode only): skip per-cell argmax
     bookkeeping when the caller consumes just ``fmax`` — the returned
     fy/fx/end are then backend-dependent filler (the window-scan
-    z-filter path; +21% measured kernel-side, BENCH_modes pwm rows).
+    z-filter path).
 
     ``pad_to``/``skip`` as in :func:`batch_align`: padding problems are
     zero-length (free — no duplicated fills/walks) and not returned;

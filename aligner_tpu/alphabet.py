@@ -1,6 +1,6 @@
 """Alphabets and sequence codecs.
 
-TPU-native data model: sequences are NumPy ``int8`` code arrays that can be
+Device-ready data model: sequences are NumPy ``int8`` code arrays that can be
 shipped to device memory directly.  The code assignment reproduces the
 reference's enums (aligner-core/src/enums.rs:55-167):
 

@@ -19,6 +19,7 @@ import sys
 
 from ..align import align_global, align_local
 from ..alphabet import BLANK, POS, DNA, Protein
+from ..backend import ENGINES
 from ..errors import ValidationError
 from ..io import read_fasta_file
 from ..result import Alignment
@@ -76,8 +77,8 @@ def main(argv: list[str] | None = None) -> int:
              "debug-format line",
     )
     ap.add_argument(
-        "--backend", default=None, choices=["oracle", "xla", "pallas"],
-        help="compute backend (default: pallas on TPU, xla elsewhere)",
+        "--backend", default=None, choices=ENGINES,
+        help="compute backend (default: by platform — pallas on GPU, xla on CPU)",
     )
     args = ap.parse_args(argv)
 

@@ -15,6 +15,7 @@ import sys
 import numpy as np
 
 from ..alphabet import Protein
+from ..backend import ENGINES
 from ..observability import log
 from ..service.store import Store, open_store
 from ..statistics import calculate_p_value
@@ -53,7 +54,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="aligner-calc", description=__doc__)
     ap.add_argument("--db", default=None)
     ap.add_argument("--seed", type=int, default=None)
-    ap.add_argument("--backend", default=None, choices=["oracle", "xla", "pallas"])
+    ap.add_argument("--backend", default=None, choices=ENGINES)
     ap.add_argument("--sequences", type=int, default=5000)
     args = ap.parse_args(argv)
     store = open_store(args.db)

@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 
+from ..backend import ENGINES
 from ..io.records import Record, write_records
 from ..repeat.engine import (
     SearchOptions,
@@ -59,7 +60,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--checkpoint", default=None,
                     help="JSON file updated per cycle; resumes if present")
-    ap.add_argument("--backend", default=None, choices=["oracle", "xla", "pallas"])
+    ap.add_argument("--backend", default=None, choices=ENGINES)
     args = ap.parse_args(argv)
 
     opts = SearchOptions(

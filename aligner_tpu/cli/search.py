@@ -11,6 +11,7 @@ import argparse
 import sys
 
 from ..alphabet import DNA, Protein
+from ..backend import ENGINES
 from ..errors import ValidationError
 from ..io import read_fasta_file
 from ..matrices import blosum50, blosum62
@@ -42,7 +43,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--global", dest="global_", action="store_true")
     ap.add_argument("--no-alignments", action="store_true",
                     help="scores only (faster)")
-    ap.add_argument("--backend", default=None, choices=["oracle", "xla", "pallas"])
+    ap.add_argument("--backend", default=None, choices=ENGINES)
     args = ap.parse_args(argv)
 
     alphabet = DNA if args.dna else Protein

@@ -8,7 +8,7 @@ strictly improving (heuristic/mod.rs:58-77).  The returned result is the
 first *non-improving* alignment with the matrix that produced it attached
 (heuristic/mod.rs:73-76).
 
-TPU-native addition: :func:`heuristic_align_population` iterates a whole
+Batched addition: :func:`heuristic_align_population` iterates a whole
 population of candidate starting matrices as one problem batch (the
 aligner-web service ships one Kafka job per matrix, node/main.rs:61-74;
 here the population is the batch axis of a single kernel launch per
@@ -164,7 +164,7 @@ def _population_device_loop_impl(q2, ql0, t2, tl0, transformed, freqs, kd,
 
     Semantics per member follow :func:`heuristic_align` exactly except
     that in-loop matrix transforms round in the device dtype (f32 on
-    TPU) instead of host f64 — the fill/walk/count pipeline itself is
+    the GPU) instead of host f64 — the fill/walk/count pipeline itself is
     bit-exact (counts are small integers), pinned by
     tests/test_heuristic_stats.py; a transform with no real roots
     propagates NaN instead of raising and is surfaced by the caller.
@@ -272,7 +272,7 @@ def _population_device_loop_impl(q2, ql0, t2, tl0, transformed, freqs, kd,
 
 
 def _use_device_loop(backend: str) -> bool:
-    """Default the fused population loop to ON for accelerator platforms
+    """The fused population loop is ON where the platform table says so
     (the per-iteration host round-trip is what it removes); the host
     loop stays the strict-f64-transform reference path.
     ALIGNER_POP_DEVICE_LOOP=0/1 overrides."""
@@ -281,9 +281,9 @@ def _use_device_loop(backend: str) -> bool:
         return env != "0"
     if backend == "oracle":
         return False
-    import jax
+    from .backend import platform
 
-    return jax.default_backend() != "cpu"
+    return platform().fused_population
 
 
 def _tile_pair(q, t, M):

@@ -1,7 +1,7 @@
 """Tracing, profiling and throughput counters.
 
 The reference has only leveled logging (SURVEY.md §5); this fills the gap
-the TPU-native way:
+for the device engines:
 
 * :class:`Counters` — process-wide cells/launches/seconds per engine,
   giving live GCUPS without external tooling;

@@ -1,7 +1,7 @@
 """Device compute kernels: the batched DP-fill engines.
 
 ``scan_engine`` is the XLA (``lax.scan``) implementation; ``pallas_dp`` is
-the TPU Pallas kernel.  Both implement the exact reference semantics
+the GPU Pallas kernel (Triton route).  Both implement the exact reference semantics
 (SURVEY.md §2.3) with the batch dimension as the parallel axis.
 """
 

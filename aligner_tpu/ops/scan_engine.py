@@ -1,16 +1,16 @@
 """Batched exact DP fill as an XLA ``lax.scan`` — the portable engine.
 
-TPU-native design note (SURVEY.md §2.3.3, §7 "hard parts"): the reference's
+Design note (SURVEY.md §2.3.3, §7 "hard parts"): the reference's
 single mutable gap-penalty state couples every cell to its fill-order
 predecessor, and the first cell of each column to the *last* cell of the
 previous column (aligner-core/src/simple/mod.rs:72,88-92).  That makes each
 DP problem inherently sequential cell-by-cell, so the parallel axis of this
-framework is the *batch*: every VPU lane carries one independent problem
+framework is the *batch*: every vector lane carries one independent problem
 and the scan walks cells in the reference's column-major fill order.  All
 hot reference workloads are batched — 5,000 shuffled alignments for
 p-values (statistics/mod.rs:253-291), chromosome window scans
 (engine/calc.rs:45-75) and candidate-matrix populations (aligner-web) —
-so this maps the reference's thread fan-outs onto the vector unit instead
+so this maps the reference's thread fan-outs onto vector lanes instead
 of translating them.
 
 Variable lengths: problems are right-padded to (R, C); a cell is *active*

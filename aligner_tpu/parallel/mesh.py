@@ -25,14 +25,14 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from ..backend import on_tpu
+from ..backend import platform
 from ..errors import ValidationError
 from ..ops.scan_engine import fill_batch, fill_pwm_batch
 
 
 def _resolve_engine(engine: str | None) -> str:
     if engine in (None, "auto"):
-        return "pallas" if on_tpu() else "xla"
+        return platform().engine
     return engine
 
 
@@ -79,20 +79,17 @@ def sharded_scores(
 
     The matrix is replicated; per-problem outputs come back sharded the
     same way.  Batch size must be divisible by the data-axis size (pad
-    with zero-length problems).  ``engine`` picks the per-device kernel:
-    pallas on TPU, the XLA scan engine elsewhere.
+    with zero-length problems).  ``engine`` picks the per-device kernel
+    (default: the platform's engine, ``backend.PLATFORMS``).
     """
     data_ax = mesh.axis_names[0]
     engine = _resolve_engine(engine)
-    packed, lut_bits, lut_bias = False, 8, 0
     if engine == "pallas":
-        from ..ops.pallas_dp import lut_params
+        from ..ops.pallas_dp import matrix_operand
 
-        packed, lut_bits, lut_bias = lut_params(matrix)
-    matrix = jnp.asarray(
-        np.round(np.asarray(matrix)).astype(np.int32) if packed else matrix,
-        jnp.int32 if packed else dtype,
-    )
+        matrix = matrix_operand(matrix, dtype, del_, ext)
+    else:
+        matrix = jnp.asarray(matrix, dtype)
 
     @functools.partial(
         shard_map,
@@ -106,9 +103,7 @@ def sharded_scores(
             from ..ops.pallas_dp import fill_scores_traced
 
             return fill_scores_traced(
-                qs, qls, ts, tls, mat, del_, ext,
-                mode=mode, dtype=dtype, packed_lut=packed,
-                lut_bits=lut_bits, lut_bias=lut_bias,
+                qs, qls, ts, tls, mat, del_, ext, mode=mode, dtype=dtype,
             )
         r = fill_batch(
             qs, qls, ts, tls, mat, del_, ext,
@@ -192,12 +187,13 @@ def matrix_population_step(
     ext: float,
     *,
     dtype=jnp.float32,
+    engine: str | None = None,
 ):
     """Score every (pair, candidate matrix) combination; reduce best matrix.
 
     Each device holds a (data-shard × matrix-shard) tile of the cross
     product, aligns it as one batch, and the best f per pair is reduced
-    with ``pmax`` over the matrix axis — the TPU-native replacement for
+    with ``pmax`` over the matrix axis — the mesh replacement for
     one-Kafka-job-per-matrix + SQL best-row promotion (handlers.rs:238-250,
     queries.rs:74-80, fixing the reference's ORDER BY ASC bug by actually
     taking the max).
@@ -205,6 +201,7 @@ def matrix_population_step(
     Returns (best_f, best_matrix_index) per pair, sharded over data.
     """
     data_ax, mat_ax = mesh.axis_names
+    engine = _resolve_engine(engine)
     matrices = jnp.asarray(matrices, dtype)
     M = matrices.shape[0]
     if M % mesh.shape[mat_ax]:
@@ -232,11 +229,19 @@ def matrix_population_step(
         ts2 = jnp.tile(ts, (m_local, 1))
         tls2 = jnp.tile(tls, m_local)
         mats2 = jnp.repeat(mats, bq, axis=0)
-        r = fill_batch(
-            qs2, qls2, ts2, tls2, mats2, del_, ext,
-            mode="local", with_planes=False, dtype=dtype,
-        )
-        f = r.fmax.reshape(m_local, bq)  # (m_local, bq)
+        if engine == "pallas":
+            from ..ops.pallas_dp import fill_scores_traced
+
+            fmax = fill_scores_traced(
+                qs2, qls2, ts2, tls2, mats2, del_, ext, mode="local",
+                dtype=dtype, track_argmax=False,
+            )[0]
+        else:
+            fmax = fill_batch(
+                qs2, qls2, ts2, tls2, mats2, del_, ext,
+                mode="local", with_planes=False, dtype=dtype,
+            ).fmax
+        f = fmax.reshape(m_local, bq)  # (m_local, bq)
         local_best = jnp.max(f, axis=0)
         local_arg = jnp.argmax(f, axis=0)
         mat_idx = jax.lax.axis_index(mat_ax)

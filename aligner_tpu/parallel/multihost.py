@@ -1,10 +1,10 @@
-"""Multi-host (pod-slice) runtime.
+"""Multi-host runtime.
 
 The reference scales out with Kafka consumers on separate machines
-(docker-compose.yml, config/node/*.env); a TPU pod slice instead runs one
-JAX process per host, all participating in the same mesh, with ICI
-collectives doing the merging and DCN used only for process bootstrap and
-host-level work intake (the service queue).
+(docker-compose.yml, config/node/*.env); here several hosts can instead
+run one JAX process each, all participating in the same mesh, with XLA
+collectives doing the merging and the network between hosts used only
+for process bootstrap and host-level work intake (the service queue).
 
 Environment contract (deploy/aligner.env documents all of these):
 
@@ -12,8 +12,8 @@ Environment contract (deploy/aligner.env documents all of these):
 * ``ALIGNER_PROCESS_ID``     — this process's index
 * ``ALIGNER_NUM_PROCESSES``  — total process count
 
-On Cloud TPU these are auto-detected by JAX; the env vars are for manual
-or non-GCE launches (deploy/launch_pod.sh).
+Nothing is auto-detected: without ``ALIGNER_NUM_PROCESSES`` > 1 the
+process runs alone (deploy/launch_pod.sh sets all three).
 """
 
 from __future__ import annotations
@@ -26,39 +26,11 @@ import numpy as np
 from .mesh import make_mesh
 
 
-# Env markers Cloud TPU sets on pod-slice VMs — their presence means
-# jax.distributed.initialize() can auto-detect the whole cluster
-_CLOUD_TPU_MARKERS = ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS")
-
-
 def initialize_from_env() -> None:
-    """``jax.distributed.initialize`` with the ALIGNER_* env contract.
-
-    Without ALIGNER_NUM_PROCESSES, auto-detection is attempted when the
-    environment carries Cloud TPU pod markers — JAX only auto-detects
-    if ``initialize()`` is actually CALLED, and skipping it on a pod
-    slice would silently give every host a LOCAL mesh (collectives then
-    compute per-host statistics instead of global ones).  Plain
-    single-host runs (no markers) stay a no-op.
-    """
+    """``jax.distributed.initialize`` with the ALIGNER_* env contract;
+    a no-op unless ``ALIGNER_NUM_PROCESSES`` > 1."""
     n = int(os.environ.get("ALIGNER_NUM_PROCESSES", "1"))
     if n <= 1:
-        if "ALIGNER_NUM_PROCESSES" in os.environ:
-            # an EXPLICIT =1 is an opt-out: auto-init on a pod-slice VM
-            # would detect the other workers and block waiting for
-            # processes the user deliberately did not launch
-            return
-        if any(os.environ.get(v) for v in _CLOUD_TPU_MARKERS):
-            try:
-                jax.distributed.initialize()
-            except Exception as e:
-                from ..observability import log
-
-                log.warning(
-                    "cloud-TPU markers present but distributed "
-                    "auto-init failed (%s); continuing single-process",
-                    e,
-                )
         return
     jax.distributed.initialize(
         coordinator_address=os.environ["ALIGNER_COORDINATOR"],

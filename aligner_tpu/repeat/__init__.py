@@ -1,6 +1,6 @@
 """Latent-repeat search: windowed PWM scans with iterative matrix refinement.
 
-TPU-native rebuild of aligner-core/src/bin/latent-repeat-search: the
+Batched rebuild of aligner-core/src/bin/latent-repeat-search: the
 window scan becomes batched scores-only kernel launches (all windows in
 one launch per chunk), with full alignments computed only for the z-
 filtered survivors.

@@ -1,6 +1,6 @@
 """Distributed alignment service.
 
-TPU-native rebuild of aligner-web: the dispatcher HTTP API
+Batched rebuild of aligner-web: the dispatcher HTTP API
 (``/health/check``, ``/validate``, ``/progress``) is preserved, while
 Kafka is replaced by a lease-based sqlite work queue and MariaDB by a
 sqlite results store.  Workers claim whole batches of candidate-matrix

@@ -11,7 +11,7 @@ reruns the same command (which resumes), and prints JSON lines:
 
   chromosome_scan_phase1   wall to the kill, cycle reached
   chromosome_scan_resume   resume wall, total wall, cells, eff. GCUPS
-  repeat_search_chromosome the BENCH_modes row (one line, merged fields)
+  repeat_search_chromosome one summary line (merged fields)
 
 Usage: python bench_chromosome.py [--mb 10] [--repeats 10]
        [--kill-cycle 3] [--backend pallas] [--workdir DIR]

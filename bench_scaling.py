@@ -1,9 +1,9 @@
 """Weak-scaling benchmark: sharded scores throughput vs mesh size.
 
 Per-device load is held constant while the mesh grows; efficiency(n) =
-throughput(n) / (n * throughput(1)).  On this single-chip environment the
-mesh is virtual (CPU host devices) unless real multi-chip hardware is
-present; the harness is the same either way (BASELINE.md: ≥85% weak-
+throughput(n) / (n * throughput(1)).  With ``--platform cpu`` the mesh is
+virtual (8 CPU host devices); otherwise it spans the visible GPUs; the
+harness is the same either way (BASELINE.md: ≥85% weak-
 scaling efficiency target at 2+ hosts).
 
 Usage: python bench_scaling.py [--per-device 512] [--length 128]
@@ -24,8 +24,8 @@ def main():
     args = ap.parse_args()
 
     if args.platform:
-        os.environ["ALIGNER_PLATFORM"] = args.platform
-    if os.environ.get("ALIGNER_PLATFORM") == "cpu":
+        os.environ["JAX_PLATFORMS"] = args.platform
+    if os.environ.get("JAX_PLATFORMS") == "cpu":
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
         )

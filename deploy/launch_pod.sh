@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Launch the aligner service across hosts (a TPU pod slice or plain
+# Launch the aligner service across hosts (GPU or CPU
 # machines).
 #
 # Replaces the reference's docker-compose stack (Zookeeper + Kafka +

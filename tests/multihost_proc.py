@@ -11,7 +11,7 @@ import json
 import os
 import sys
 
-os.environ.setdefault("ALIGNER_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=2"
 ).strip()
@@ -100,7 +100,6 @@ def main() -> int:
     wt = rng.integers(0, 24, 70).astype(np.int8)
     wf_end = float(sharded_global_end_score(
         mesh1d, wq, wt, np.asarray(blosum62()), 11.0, 2.0, tr=16,
-        engine="lax",
     ))
 
     # cross-process FULL alignment: the forward pipeline all-gathers the
@@ -111,7 +110,7 @@ def main() -> int:
 
     aln_end, qa, ta, coords = sharded_global_align(
         mesh1d, wq, wt, np.asarray(blosum62()), 11.0, 2.0, tr=16,
-        tb_rows=32, engine="lax",
+        tb_rows=32,
     )
 
     # every process writes ITS OWN view of the alignment

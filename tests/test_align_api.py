@@ -16,6 +16,9 @@ from aligner_tpu.align import (
 )
 from aligner_tpu.io import read_fasta_file
 
+# the GPU kernel ("pallas") runs in Pallas interpret mode on the CPU
+pytestmark = pytest.mark.usefixtures("pallas_interpret")
+
 EXAMPLES = "examples"
 
 
@@ -130,8 +133,8 @@ def test_class_wrappers_and_errors():
         pa.perform_alignment(3.0, 1.0, np.zeros((5, 4)))
 
 
-# --- huge-pair dispatch (VERDICT r2 #3: wide/multi-device pairs route
-# to the cross-chip wavefront, never a materialized O(R*C) plane) ---
+# --- huge-pair dispatch (VERDICT r2 #3: huge pairs route to the
+# cross-device wavefront, never a materialized O(R*C) plane) ---
 
 
 def _capture_sharded(monkeypatch):
@@ -151,16 +154,17 @@ def _capture_sharded(monkeypatch):
 
 
 def test_wide_pair_routes_to_sharded(monkeypatch):
-    """A query wider than the single-chip wavefront cap dispatches to
-    the column-sharded pipeline — not a plane fill (which would OOM)."""
-    from aligner_tpu.ops.wavefront import MAX_WIDTH
+    """A pair past the direct-plane budget dispatches to the
+    column-sharded pipeline — not a plane fill (which would OOM)."""
+    from aligner_tpu.parallel import wavefront_sp
 
     calls = _capture_sharded(monkeypatch)
+    monkeypatch.setattr(wavefront_sp, "DIRECT_PLANE_CELLS", 64 * 64)
     rng = np.random.default_rng(0)
-    q = rng.integers(0, 24, MAX_WIDTH + 64).astype(np.int8)
+    q = rng.integers(0, 24, 4096 + 64).astype(np.int8)
     t = rng.integers(0, 24, 64).astype(np.int8)
     align_global(q, t, at.blosum62(), 11.0, 2.0)
-    assert calls == [(MAX_WIDTH + 64, 64)]
+    assert calls == [(4096 + 64, 64)]
 
 
 def test_huge_pair_multi_device_routes_to_sharded(monkeypatch):
@@ -233,9 +237,9 @@ def test_sharded_route_uses_local_data_mesh(monkeypatch):
     _data_mesh helper (local devices under multi-controller), not
     global jax.devices() (review r3 #1)."""
     from aligner_tpu import align as align_mod
-    from aligner_tpu.ops.wavefront import MAX_WIDTH
     from aligner_tpu.parallel import wavefront_sp
 
+    monkeypatch.setattr(wavefront_sp, "DIRECT_PLANE_CELLS", 64 * 64)
     seen = []
 
     def fake(mesh, q, t, matrix, del_, ext, **kw):
@@ -247,7 +251,7 @@ def test_sharded_route_uses_local_data_mesh(monkeypatch):
     monkeypatch.setattr(wavefront_sp, "sharded_global_end_score",
                         lambda mesh, *a, **kw: seen.append(mesh) or 0.0)
     rng = np.random.default_rng(2)
-    q = rng.integers(0, 24, MAX_WIDTH + 64).astype(np.int8)
+    q = rng.integers(0, 24, 4096 + 64).astype(np.int8)
     t = rng.integers(0, 24, 64).astype(np.int8)
     align_global(q, t, at.blosum62(), 11.0, 2.0)
     at.global_end_score(q, t, at.blosum62(), 11.0, 2.0)

@@ -22,6 +22,9 @@ from aligner_tpu.repeat.engine import (
 )
 from aligner_tpu.statistics import calculate_p_value
 
+# the GPU kernel ("pallas") runs in Pallas interpret mode on the CPU
+pytestmark = pytest.mark.usefixtures("pallas_interpret")
+
 
 def _unsharded(monkeypatch):
     monkeypatch.setenv("ALIGNER_AUTO_SHARD", "0")
@@ -159,7 +162,7 @@ def test_pallas_sharded_fill_matches_unsharded(rng, monkeypatch, mode):
     )
     res_1 = fill_batch_pallas(
         q, ql, t, tl, M, 11.0, 2.0, mode=mode, with_planes=True,
-        dtype=jnp.float32, scores_plane=False,
+        dtype=jnp.float32,
     )
     np.testing.assert_array_equal(np.asarray(res_s.fmax), np.asarray(res_1.fmax))
     np.testing.assert_array_equal(np.asarray(res_s.fy), np.asarray(res_1.fy))
@@ -182,7 +185,6 @@ def test_pallas_sharded_pwm_matches_unsharded(rng):
                               jnp.float32, 8)
     res_1 = fill_pwm_batch_pallas(
         q, ql, pwm, 3.0, 1.0, with_planes=True, dtype=jnp.float32,
-        scores_plane=False,
     )
     np.testing.assert_array_equal(np.asarray(res_s.fmax), np.asarray(res_1.fmax))
     np.testing.assert_array_equal(res_s.dirs, res_1.dirs)
@@ -245,3 +247,20 @@ def test_pwm_batched_matrices_sharded(rng, monkeypatch):
     for a, b in zip(out_s, out_1):
         assert a.alignment.f == b.alignment.f
         np.testing.assert_array_equal(a.alignment.query, b.alignment.query)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_sharded_step_built_once_per_configuration(rng, backend):
+    """Repeated sharded fills of one configuration reuse one jitted
+    shard_map program (a fresh one per call recompiled the whole
+    per-shard fill, kernel included, on every batch)."""
+    from aligner_tpu import align as align_mod
+
+    qs = [rng.integers(0, 24, 20).astype(np.int8) for _ in range(11)]
+    ts = [rng.integers(0, 24, 20).astype(np.int8) for _ in range(11)]
+    M = np.asarray(at.blosum62())
+    first = batch_align(qs, ts, M, 11.0, 2.0, backend=backend)
+    size = align_mod._sharded_step.cache_info().currsize
+    again = batch_align(qs, ts, M, 11.0, 2.0, backend=backend)
+    assert align_mod._sharded_step.cache_info().currsize == size
+    np.testing.assert_array_equal(first.fmax, again.fmax)

@@ -14,6 +14,9 @@ import pytest
 import aligner_tpu as at
 from aligner_tpu.align import batch_align, batch_align_pwm
 
+# the GPU kernel ("pallas") runs in Pallas interpret mode on the CPU
+pytestmark = pytest.mark.usefixtures("pallas_interpret")
+
 
 def _rand_batch(rng, n, lo=1, hi=60, v=24, related=False):
     qs = [rng.integers(0, v, rng.integers(lo, hi)).astype(np.int8)
@@ -129,11 +132,14 @@ def test_device_walk_long_pairs(rng, monkeypatch):
     _assert_pairs_equal(dev, host)
 
 
-@pytest.mark.tpu
-def test_device_walk_hardware_spot(rng, monkeypatch):
-    """On real hardware (compiled scan + packed-word gathers, not
+@pytest.mark.gpu
+def test_device_walk_hardware_spot(gpu, rng, monkeypatch):
+    """On the card (compiled kernel + packed-word gathers, not
     interpret mode): device walk vs host walk bit-equal for both modes,
     plus the PWM walk (CLAUDE.md engine-change invariant)."""
+    from aligner_tpu.ops import pallas_dp
+
+    monkeypatch.setattr(pallas_dp, "INTERPRET", False)
     m = at.blosum62()
     for mode in ("global", "local"):
         qs, ts = _rand_batch(rng, 64, lo=20, hi=90,

@@ -19,6 +19,9 @@ from aligner_tpu.statistics import (
     shuffle_and_randomize_sequence,
 )
 
+# the GPU kernel ("pallas") runs in Pallas interpret mode on the CPU
+pytestmark = pytest.mark.usefixtures("pallas_interpret")
+
 
 def _heur(rng, vol=24):
     freqs = rng.random(vol)

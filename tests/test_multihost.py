@@ -36,7 +36,6 @@ def _clean_env() -> dict:
     env = dict(os.environ)
     # the test process's own JAX/XLA settings must not leak into children
     env.pop("XLA_FLAGS", None)
-    env["ALIGNER_PLATFORM"] = "cpu"
     env["JAX_PLATFORMS"] = "cpu"
     # Child scripts are run by path (sys.path gets tests/, not the repo
     # root), so make the package importable even when not pip-installed.

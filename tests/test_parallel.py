@@ -14,6 +14,9 @@ from aligner_tpu.parallel import (
     window_scan_step,
 )
 
+# the GPU kernel ("pallas") runs in Pallas interpret mode on the CPU
+pytestmark = pytest.mark.usefixtures("pallas_interpret")
+
 DT = jnp.float64
 
 

@@ -19,6 +19,9 @@ from aligner_tpu.repeat.engine import (
     windows_of,
 )
 
+# the GPU kernel ("pallas") runs in Pallas interpret mode on the CPU
+pytestmark = pytest.mark.usefixtures("pallas_interpret")
+
 
 def _task(z, left, right):
     return Task(alignment=None, left_coord=left, right_coord=right, z=z, f=0.0)

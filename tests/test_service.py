@@ -440,7 +440,7 @@ def test_worker_drops_job_with_malformed_matrix(svc):
 
 
 def test_worker_leaves_jobs_for_redelivery_on_transient_failure(svc, monkeypatch):
-    """A transient (non-deterministic) failure — device/tunnel/infra —
+    """A transient (non-deterministic) failure — device/infra —
     must NOT commit the jobs away as done: they stay claimed, lease
     expiry redelivers them, and a healthy retry completes the task
     (at-least-once, node/main.rs:78-88's spirit)."""
@@ -455,7 +455,7 @@ def test_worker_leaves_jobs_for_redelivery_on_transient_failure(svc, monkeypatch
     def flaky(*a, **kw):
         boom["n"] += 1
         if boom["n"] <= 3:  # first pass: every task group fails
-            raise RuntimeError("simulated tunnel reset")
+            raise RuntimeError("simulated device reset")
         return real(*a, **kw)
 
     monkeypatch.setattr(worker_mod, "heuristic_align_population", flaky)

@@ -109,9 +109,9 @@ def test_huge_local_routes_to_stream_without_plane(rng, monkeypatch):
     engine may allocate an O(R*C) plane (the LOCAL sibling of the
     align_global huge-pair guard)."""
     from aligner_tpu import align as align_mod
-    from aligner_tpu.ops import wavefront as _wf
+    from aligner_tpu.parallel import wavefront_sp
 
-    monkeypatch.setattr(_wf, "DIRECT_PLANE_CELLS", 1000)
+    monkeypatch.setattr(wavefront_sp, "DIRECT_PLANE_CELLS", 1000)
     called = []
     real = native.align_local_stream
 

@@ -1,8 +1,9 @@
-"""Cross-chip sequence-parallel wavefront (parallel/wavefront_sp.py):
-bit-parity with the oracle on the 8-virtual-device mesh.
+"""Cross-device sequence-parallel wavefront (parallel/wavefront_sp.py):
+bit-parity with the oracle on one device and on the 8-virtual-device mesh.
 
 This is the SURVEY §7a capability — one huge global pair tiled across
-chips with boundary halo exchange over the mesh (ppermute pipeline).
+devices with boundary halo exchange over the mesh (ppermute pipeline);
+on one device the same program is the huge-pair route of align_global.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from jax.sharding import Mesh
 import aligner_tpu as at
 from aligner_tpu import host
 from aligner_tpu.parallel.wavefront_sp import (
+    range_ok,
     sharded_global_align,
     sharded_global_end_score,
 )
@@ -25,15 +27,19 @@ def mesh():
     return Mesh(np.array(jax.devices()).reshape(-1), ("data",))
 
 
-@pytest.mark.parametrize("engine", ["lax", "pallas", "band"])
-def test_parity_vs_oracle(mesh, rng, engine):
+def _mesh(n_dev):
+    return Mesh(np.array(jax.devices()[:n_dev]), ("data",))
+
+
+@pytest.mark.parametrize("n_dev", [1, 8])
+def test_parity_vs_oracle(rng, n_dev):
     M = np.asarray(at.blosum62())
     for C, R in [(1000, 700), (333, 190), (1024, 257)]:
         q = rng.integers(0, 24, C).astype(np.int8)
         t = rng.integers(0, 24, R).astype(np.int8)
         ref = host.align_global(q, t, M, 11.0, 2.0)
-        end = sharded_global_end_score(mesh, q, t, M, 11.0, 2.0, tr=64,
-                                       engine=engine)
+        end = sharded_global_end_score(_mesh(n_dev), q, t, M, 11.0, 2.0,
+                                       tr=64)
         assert end == ref.score[R, C]
 
 
@@ -50,14 +56,12 @@ def test_degenerate_shapes(mesh, rng):
 
 
 def test_matches_single_chip_wavefront(mesh, rng):
-    from aligner_tpu.ops.wavefront import fill_single_global
-
+    """The 8-device pipeline and the one-device route agree."""
     M = np.asarray(at.blosum62())
     q = rng.integers(0, 24, 300).astype(np.int8)
     t = rng.integers(0, 24, 450).astype(np.int8)
     end_sp = sharded_global_end_score(mesh, q, t, M, 11.0, 2.0)
-    end_1, _ = fill_single_global(q, t, M, 11.0, 2.0, with_dirs=False,
-                                  interpret=True)
+    end_1 = sharded_global_end_score(_mesh(1), q, t, M, 11.0, 2.0)
     assert end_sp == end_1
 
 
@@ -69,39 +73,11 @@ def test_non_integral_rejected(mesh):
         )
 
 
-def test_pallas_engine_narrow_and_idle_devices(mesh, rng):
-    """Pallas block engine with fully-padded devices and a single
-    row-block."""
-    M = np.asarray(at.blosum62())
-    for C, R in [(100, 500), (64, 64)]:
-        q = rng.integers(0, 24, C).astype(np.int8)
-        t = rng.integers(0, 24, R).astype(np.int8)
-        ref = host.align_global(q, t, M, 7.0, 3.0)
-        end = sharded_global_end_score(mesh, q, t, M, 7.0, 3.0, tr=32,
-                                       engine="pallas")
-        assert end == ref.score[R, C]
-
-
-@pytest.mark.tpu
-def test_pallas_engine_hardware_spot(rng):
-    """Mosaic lowering of the column-sharded block kernel on real
-    hardware (1-device mesh — the pipeline and kernel are identical
-    to the n-device case)."""
-    mesh1 = Mesh(np.array(jax.devices()[:1]), ("data",))
-    M = np.asarray(at.blosum62())
-    q = rng.integers(0, 24, 700).astype(np.int8)
-    t = rng.integers(0, 24, 900).astype(np.int8)
-    ref = host.align_global(q, t, M, 11.0, 2.0)
-    end = sharded_global_end_score(mesh1, q, t, M, 11.0, 2.0, tr=128,
-                                   engine="pallas", interpret=False)
-    assert end == ref.score[900, 700]
-
-
-@pytest.mark.parametrize("engine", ["lax", "pallas", "band"])
-def test_sharded_align_matches_oracle(mesh, rng, engine):
-    """Exact ALIGNMENTS (VERDICT r2 #2): the checkpoint-and-replay
-    traceback over the 8-device pipeline is bit-equal to the oracle —
-    strings, coords, and end score — on tile-straddling shapes."""
+@pytest.mark.parametrize("n_dev", [1, 8])
+def test_sharded_align_matches_oracle(rng, n_dev):
+    """Exact ALIGNMENTS: the checkpoint-and-replay traceback over the
+    pipeline is bit-equal to the oracle — strings, coords, and end
+    score — on tile-straddling shapes."""
     M = np.asarray(at.blosum62())
     # shapes chosen to straddle row-block (tb), column-block (Cb), and
     # checkpoint boundaries, incl. a pair whose path crosses devices
@@ -110,7 +86,7 @@ def test_sharded_align_matches_oracle(mesh, rng, engine):
         t = rng.integers(0, 24, R).astype(np.int8)
         ref = host.align_global(q, t, M, 11.0, 2.0)
         end, qa, ta, coords = sharded_global_align(
-            mesh, q, t, M, 11.0, 2.0, tr=32, tb_rows=64, engine=engine
+            _mesh(n_dev), q, t, M, 11.0, 2.0, tr=32, tb_rows=64
         )
         assert end == ref.score[R, C]
         np.testing.assert_array_equal(qa, ref.query_aligned)
@@ -135,33 +111,26 @@ def test_sharded_align_degenerate_shapes(mesh, rng):
 
 
 def test_sharded_align_matches_single_chip_chunked(mesh, rng):
-    """Cross-path agreement: the sharded traceback and the single-chip
-    chunked traceback give identical strings."""
-    from aligner_tpu.ops.wavefront import align_single_global_chunked
-
+    """Cross-path agreement: the 8-device traceback and the one-device
+    traceback (other tile sizes) give identical strings."""
     M = np.asarray(at.blosum62())
     q = rng.integers(0, 24, 300).astype(np.int8)
     t = rng.integers(0, 24, 450).astype(np.int8)
     e1, qa1, ta1, c1 = sharded_global_align(mesh, q, t, M, 11.0, 2.0,
                                             tr=64, tb_rows=128)
-    e2, qa2, ta2, c2 = align_single_global_chunked(
-        q, t, M, 11.0, 2.0, tb_rows=128, tr=16, interpret=True
-    )
+    e2, qa2, ta2, c2 = sharded_global_align(_mesh(1), q, t, M, 11.0, 2.0,
+                                            tr=16, tb_rows=128)
     assert e1 == e2 and c1 == c2
     np.testing.assert_array_equal(qa1, qa2)
     np.testing.assert_array_equal(ta1, ta2)
 
 
 def test_range_guard_rejects_overflow(mesh):
-    """int32-exactness guard (ADVICE r2): absurdly long pairs whose
-    scores could wrap are refused, not silently corrupted."""
-    from aligner_tpu.ops.wavefront import range_ok, supported
-
+    """int32-exactness guard: absurdly long pairs whose scores could
+    wrap are refused, not silently corrupted."""
     M = np.asarray(at.blosum62())
     assert range_ok(1000, 1000, 11.0, 2.0)
     assert not range_ok(1000, 2**30 // 11, 11.0, 2.0)
-    assert supported(1000, M, 11.0, 2.0, tlen=1000)
-    assert not supported(1000, M, 11.0, 2.0, tlen=2**30 // 11)
     q = np.zeros(8, np.int8)
     # zero-copy huge target: the guard reads only len(t), and raises
     # before any per-element work touches the array
@@ -170,92 +139,17 @@ def test_range_guard_rejects_overflow(mesh):
         sharded_global_align(mesh, q, t_huge, M, 11.0, 2.0)
 
 
-@pytest.mark.tpu
-def test_sharded_align_hardware_spot(rng):
-    """Mosaic lowering of the dirs-emitting block kernel on real
-    hardware (1-device mesh — kernel identical to the n-device case)."""
-    mesh1 = Mesh(np.array(jax.devices()[:1]), ("data",))
-    M = np.asarray(at.blosum62())
-    q = rng.integers(0, 24, 700).astype(np.int8)
-    t = rng.integers(0, 24, 900).astype(np.int8)
-    ref = host.align_global(q, t, M, 11.0, 2.0)
-    end, qa, ta, _ = sharded_global_align(
-        mesh1, q, t, M, 11.0, 2.0, tr=128, tb_rows=256,
-        engine="pallas", interpret=False,
-    )
-    assert end == ref.score[900, 700]
-    np.testing.assert_array_equal(qa, ref.query_aligned)
-    np.testing.assert_array_equal(ta, ref.target_aligned)
-
-
-def test_pallas_engine_wide_entry_matrix_falls_back(mesh, rng):
-    """Integral matrices beyond int8 cannot use the packed-byte pallas
-    engine — it must fall back to the lax fill, not corrupt scores."""
+def test_wide_entry_matrix_exact(mesh, rng):
+    """Integral matrices beyond int8 are exact (int32 arithmetic)."""
     M = rng.integers(-200, 200, (24, 24)).astype(np.float64)
     q = rng.integers(0, 24, 300).astype(np.int8)
     t = rng.integers(0, 24, 200).astype(np.int8)
     ref = host.align_global(q, t, M, 11.0, 2.0)
-    end = sharded_global_end_score(mesh, q, t, M, 11.0, 2.0,
-                                   engine="pallas")
+    end = sharded_global_end_score(mesh, q, t, M, 11.0, 2.0)
     assert end == ref.score[200, 300]
-
-def test_wide_block_auto_falls_back_to_lax(mesh, rng, monkeypatch):
-    """Per-device column blocks past the pallas VMEM budget must route
-    to the lax engine instead of failing Mosaic allocation (review r3:
-    a 1-device mesh with qlen > MAX_WIDTH used to compile a ~22 MB
-    kernel)."""
-    from aligner_tpu.parallel import wavefront_sp
-
-    monkeypatch.setattr(wavefront_sp, "MAX_CB", 128)
-    M = np.asarray(at.blosum62())
-    q = rng.integers(0, 24, 2000).astype(np.int8)  # Cb would be 256
-    t = rng.integers(0, 24, 300).astype(np.int8)
-    pp = wavefront_sp._prep_sharded(
-        mesh, q, t, M, 11.0, 2.0, 32, None, "pallas", None
-    )
-    assert pp["engine"] == "lax"
-    ref = host.align_global(q, t, M, 11.0, 2.0)
-    end = sharded_global_end_score(mesh, q, t, M, 11.0, 2.0, tr=32,
-                                   engine="pallas")
-    assert end == ref.score[300, 2000]
-
-
-def test_replay_tile_clamped_to_vmem_budget(mesh, rng, monkeypatch):
-    """The dirs-emitting replay tile must fit VMEM: tb_rows is clamped
-    when the budget allows a smaller multiple of tr, and the replay
-    drops to the (bit-identical) lax tile engine when even TB=tr does
-    not fit — alignments stay exact either way (review r3 #3)."""
-    from aligner_tpu.parallel import wavefront_sp
-
-    M = np.asarray(at.blosum62())
-    q = rng.integers(0, 24, 300).astype(np.int8)
-    t = rng.integers(0, 24, 250).astype(np.int8)
-    ref = host.align_global(q, t, M, 11.0, 2.0)
-
-    # budget forces TB down to one tr block but keeps the pallas replay:
-    # Cb = 128 here, so (36 + TB/4)*128 <= budget picks TB = 32
-    monkeypatch.setattr(wavefront_sp, "_REPLAY_VMEM_BYTES", 46 * 128)
-    pp = wavefront_sp._prep_sharded(
-        mesh, q, t, M, 11.0, 2.0, 32, None, "pallas", None, tb_rows=512
-    )
-    assert pp["replay_engine"] == "pallas" and pp["stride"] == 1
-    end, qa, ta, _ = sharded_global_align(
-        mesh, q, t, M, 11.0, 2.0, tr=32, tb_rows=512, engine="pallas"
-    )
-    assert end == ref.score[250, 300]
-    np.testing.assert_array_equal(qa, ref.query_aligned)
-    np.testing.assert_array_equal(ta, ref.target_aligned)
-
-    # budget too small for any pallas replay: lax tile fallback
-    monkeypatch.setattr(wavefront_sp, "_REPLAY_VMEM_BYTES", 37 * 128)
-    pp = wavefront_sp._prep_sharded(
-        mesh, q, t, M, 11.0, 2.0, 32, None, "pallas", None, tb_rows=512
-    )
-    assert pp["engine"] == "pallas" and pp["replay_engine"] == "lax"
-    end, qa, ta, _ = sharded_global_align(
-        mesh, q, t, M, 11.0, 2.0, tr=32, tb_rows=512, engine="pallas"
-    )
-    assert end == ref.score[250, 300]
+    end, qa, ta, _ = sharded_global_align(mesh, q, t, M, 11.0, 2.0, tr=32,
+                                          tb_rows=64)
+    assert end == ref.score[200, 300]
     np.testing.assert_array_equal(qa, ref.query_aligned)
     np.testing.assert_array_equal(ta, ref.target_aligned)
 
@@ -282,23 +176,22 @@ def test_oversized_rejection_is_o1(mesh, monkeypatch):
     assert not called
 
 
-@pytest.mark.parametrize("engine", ["lax", "pallas", "band"])
-def test_compile_bucket_reuse_sharded(mesh, rng, engine):
+@pytest.mark.parametrize("n_dev", [1, 8])
+def test_compile_bucket_reuse_sharded(rng, n_dev):
     """Distinct real lengths inside one padded bucket (Cb columns ×
     J row-blocks) reuse the SAME cached pipeline — the lengths ride in
-    as a replicated runtime operand, so no rebuild and no retrace
-    (compile-bucket lever, docs/PERF_NOTES.md)."""
+    as a replicated runtime operand, so no rebuild and no retrace."""
     from aligner_tpu.parallel import wavefront_sp
 
     M = np.asarray(at.blosum62())
+    mesh = _mesh(n_dev)
     size0 = None
-    # both pairs land in the Cb/J bucket of (1000, 700) at tr=64, n=8
+    # both pairs land in the Cb/J bucket of (1000, 700) at tr=64
     for C, R in [(1000, 700), (999, 660)]:
         q = rng.integers(0, 24, C).astype(np.int8)
         t = rng.integers(0, 24, R).astype(np.int8)
         ref = host.align_global(q, t, M, 11.0, 2.0)
-        end = sharded_global_end_score(mesh, q, t, M, 11.0, 2.0, tr=64,
-                                       engine=engine)
+        end = sharded_global_end_score(mesh, q, t, M, 11.0, 2.0, tr=64)
         assert end == ref.score[R, C]
         size = wavefront_sp._build_pipeline.cache_info().currsize
         if size0 is None:
@@ -306,143 +199,83 @@ def test_compile_bucket_reuse_sharded(mesh, rng, engine):
     assert size == size0  # the second pair added no pipeline build
 
 
-def test_auto_shard_config_choices():
-    """The measured-model auto-config (VERDICT r3 #5): tall bands for
-    wide blocks, shorter bands as the per-device width shrinks, the
-    traceback cap honored, and the weak-scaling north star (>=0.85 at
-    n in {8,16,32}) met at constant per-device load for chromosome-
-    scale targets (docs/PERF_NOTES.md '(tr, J, n)' section)."""
-    from aligner_tpu.parallel.wavefront_sp import auto_shard_config
-
-    e, tr, _ = auto_shard_config(65536, 65536, 1)
-    assert (e, tr) == ("band", 16384)
-    e, tr, _ = auto_shard_config(65536, 65536, 32)
-    assert e == "band" and tr <= 4096
-    _, tr, _ = auto_shard_config(65536, 1 << 20, 1, max_band_tr=2048)
-    assert tr <= 2048
-    base = auto_shard_config(65536, 4 << 20, 1)[2]
-    for n in (8, 16, 32):
-        g = auto_shard_config(65536 * n, 4 << 20, n)[2]
-        assert g / base >= 0.85, (n, g / base)
-
-
-def test_band_engine_tr_rounding_and_clamp(mesh, rng):
-    """The band block engine rounds tr to a 128 multiple (lanes = rows)
-    and clamps it to the padded target length; results stay exact."""
-    from aligner_tpu.parallel import wavefront_sp
-
-    M = np.asarray(at.blosum62())
-    q = rng.integers(0, 24, 500).astype(np.int8)
-    t = rng.integers(0, 24, 100).astype(np.int8)
-    ref = host.align_global(q, t, M, 11.0, 2.0)
-    for tr in (77, 4096):
-        pp = wavefront_sp._prep_sharded(
-            mesh, q, t, M, 11.0, 2.0, tr, None, "band", None
-        )
-        assert pp["tr"] == 128  # rounded up / clamped to ceil(100/128)*128
-        end = sharded_global_end_score(mesh, q, t, M, 11.0, 2.0, tr=tr,
-                                       engine="band")
-        assert end == ref.score[100, 500]
-
-
-def test_band_engine_wide_entry_matrix_byte_lut(mesh, rng):
-    """Entry ranges past 16 values route the band engine to the 8-bit
-    byte LUT; ranges past int8 fall back to the lax fill."""
-    from aligner_tpu.parallel import wavefront_sp
-
-    Mw = rng.integers(-100, 100, (24, 24)).astype(np.float64)
-    q = rng.integers(0, 24, 300).astype(np.int8)
-    t = rng.integers(0, 24, 220).astype(np.int8)
-    pp = wavefront_sp._prep_sharded(
-        mesh, q, t, Mw, 11.0, 2.0, 128, None, "band", None
-    )
-    assert pp["engine"] == "band" and pp["lut_bits"] == 8
-    ref = host.align_global(q, t, Mw, 11.0, 2.0)
-    end = sharded_global_end_score(mesh, q, t, Mw, 11.0, 2.0, tr=128,
-                                   engine="band")
-    assert end == ref.score[220, 300]
-
-    Mx = rng.integers(-200, 200, (24, 24)).astype(np.float64)
-    pp = wavefront_sp._prep_sharded(
-        mesh, q, t, Mx, 11.0, 2.0, 128, None, "band", None
-    )
-    assert pp["engine"] == "lax"
-    ref = host.align_global(q, t, Mx, 11.0, 2.0)
-    end = sharded_global_end_score(mesh, q, t, Mx, 11.0, 2.0, engine="band")
-    assert end == ref.score[220, 300]
-
-
-def test_band_engine_lane0_diag_regression(mesh, rng):
-    """Regression: the (1,1) del-up correction in the fill stream must
-    not leak into cell (1,2)'s diagonal through the shared roll carry
-    (the fd-stream fix).  Minimal shapes whose border terms compete with
-    the first scores — caught only when del - ext is large vs entries."""
-    Mw = rng.integers(-100, 100, (4, 4)).astype(np.float64)
-    for C, R in [(2, 1), (2, 2), (3, 2), (4, 1), (1, 2), (5, 4)]:
-        for _ in range(4):
-            q = rng.integers(0, 4, C).astype(np.int8)
-            t = rng.integers(0, 4, R).astype(np.int8)
-            ref = host.align_global(q, t, Mw, 11.0, 2.0)
-            end = sharded_global_end_score(mesh, q, t, Mw, 11.0, 2.0,
-                                           tr=128, engine="band")
-            assert end == ref.score[R, C], (C, R, q, t)
-
-
-@pytest.mark.tpu
-def test_auto_config_default_hardware(rng):
-    """The no-args default on TPU goes through auto_shard_config (the
-    measured-model pick) and still produces the exact end score."""
-    mesh1 = Mesh(np.array(jax.devices()[:1]), ("data",))
-    M = np.asarray(at.blosum62())
-    q = rng.integers(0, 24, 900).astype(np.int8)
-    t = rng.integers(0, 24, 700).astype(np.int8)
-    ref = host.align_global(q, t, M, 11.0, 2.0)
-    end = sharded_global_end_score(mesh1, q, t, M, 11.0, 2.0,
-                                   interpret=False)
-    assert end == ref.score[700, 900]
-
-
-@pytest.mark.tpu
-def test_band_engine_hardware_spot(rng):
-    """Mosaic lowering of the band-diagonal block kernel on real
-    hardware (1-device mesh — kernel identical to the n-device case)."""
-    mesh1 = Mesh(np.array(jax.devices()[:1]), ("data",))
-    M = np.asarray(at.blosum62())
-    q = rng.integers(0, 24, 700).astype(np.int8)
-    t = rng.integers(0, 24, 900).astype(np.int8)
-    ref = host.align_global(q, t, M, 11.0, 2.0)
-    end = sharded_global_end_score(mesh1, q, t, M, 11.0, 2.0, tr=256,
-                                   engine="band", interpret=False)
-    assert end == ref.score[900, 700]
-    end2, qa, ta, _ = sharded_global_align(
-        mesh1, q, t, M, 11.0, 2.0, tr=256, tb_rows=256,
-        engine="band", interpret=False,
-    )
-    assert end2 == ref.score[900, 700]
-    np.testing.assert_array_equal(qa, ref.query_aligned)
-    np.testing.assert_array_equal(ta, ref.target_aligned)
-
-
-@pytest.mark.parametrize("engine", ["lax", "pallas", "band"])
-def test_sharded_align_device_walk_matches_host_walk(
-    mesh, rng, engine, monkeypatch
-):
+@pytest.mark.parametrize("n_dev", [1, 8])
+def test_sharded_align_device_walk_matches_host_walk(rng, n_dev, monkeypatch):
     """The fused on-device tile replay+walk (default) is bit-identical
-    to the host per-cell walk over downloaded tiles for both replay
-    engines, including tile-boundary crossings in both axes."""
+    to the host per-cell walk over downloaded tiles, including
+    tile-boundary crossings in both axes."""
     M = np.asarray(at.blosum62())
     for C, R in [(300, 150), (128 * 8, 100), (70, 260)]:
         q = rng.integers(0, 24, C).astype(np.int8)
         t = rng.integers(0, 24, R).astype(np.int8)
         monkeypatch.setenv("ALIGNER_DEVICE_WALK", "1")
-        dev = sharded_global_align(
-            mesh, q, t, M, 11.0, 2.0, tr=32, tb_rows=64, engine=engine
-        )
+        dev = sharded_global_align(_mesh(n_dev), q, t, M, 11.0, 2.0, tr=32,
+                                   tb_rows=64)
         monkeypatch.setenv("ALIGNER_DEVICE_WALK", "0")
-        hst = sharded_global_align(
-            mesh, q, t, M, 11.0, 2.0, tr=32, tb_rows=64, engine=engine
-        )
+        hst = sharded_global_align(_mesh(n_dev), q, t, M, 11.0, 2.0, tr=32,
+                                   tb_rows=64)
         assert dev[0] == hst[0]
         np.testing.assert_array_equal(dev[1], hst[1])
         np.testing.assert_array_equal(dev[2], hst[2])
         assert dev[3] == hst[3]
+
+
+# --- align_global's huge-pair route (the pipeline on the local devices)
+
+
+def _ref_matrix(kind, rng):
+    M = np.asarray(at.blosum62(), np.float64)
+    if kind == "int16":
+        return rng.integers(-300, 300, (24, 24)).astype(np.float64)
+    return M
+
+
+@pytest.mark.parametrize(
+    "C,R,matrix,del_,ext",
+    [
+        (257, 131, "blosum", 11.0, 2.0),  # ragged tails vs tr/tb
+        (1, 90, "blosum", 11.0, 2.0),  # one column: far corner row 0
+        (90, 1, "blosum", 11.0, 2.0),  # one row: far corner column 0
+        (513, 129, "blosum", 7.0, 3.0),
+        (200, 300, "int16", 11.0, 2.0),  # entries past int8
+        (150, 150, "blosum", 1.0, 1.0),
+    ],
+)
+def test_huge_global_route_matches_host(rng, monkeypatch, C, R, matrix,
+                                        del_, ext):
+    """With the direct-plane budget lowered, align_global and
+    global_end_score route the pair through the pipeline on the local
+    devices and return the host engine's end score and strings."""
+    from aligner_tpu import align as align_mod
+    from aligner_tpu.parallel import wavefront_sp
+
+    monkeypatch.setattr(wavefront_sp, "DIRECT_PLANE_CELLS", 64)
+    monkeypatch.setattr(
+        align_mod, "_fill",
+        lambda *a, **k: pytest.fail("huge pair fell through to a plane"),
+    )
+    M = _ref_matrix(matrix, rng)
+    q = rng.integers(0, 24, C).astype(np.int8)
+    t = rng.integers(0, 24, R).astype(np.int8)
+    ref = host.align_global(q, t, M, del_, ext)
+    got = at.align_global(q, t, M, del_, ext)
+    np.testing.assert_array_equal(got.alignment.query,
+                                  ref.query_aligned)
+    np.testing.assert_array_equal(got.alignment.target,
+                                  ref.target_aligned)
+    assert got.alignment.coords == ((1, C), (1, R))
+    assert at.global_end_score(q, t, M, del_, ext) == ref.score[R, C]
+
+
+def test_huge_global_route_refuses_int32_overflow(monkeypatch):
+    """Past the int32-exact range the huge route refuses instead of
+    wrapping (and no plane engine is tried)."""
+    from aligner_tpu.parallel import wavefront_sp
+
+    monkeypatch.setattr(wavefront_sp, "range_ok", lambda *a: False)
+    q = np.zeros(30_000, np.int8)
+    with pytest.raises(at.ValidationError, match="int32|plane"):
+        at.align_global(q, q, at.blosum62(), 11.0, 2.0)
+    with pytest.raises(at.ValidationError, match="int32|integral"):
+        at.global_end_score(q[:10], q[:10], at.blosum62(), 11.0, 2.0,
+                            backend="diag")
